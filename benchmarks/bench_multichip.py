@@ -1,15 +1,15 @@
 """Multi-chip scaling of the sharded fit+evolve step (virtual CPU mesh).
 
-VERDICT round-1 task 9: measure the sharded step at N = 2k-16k points per
+Measures the sharded step at N = 2k-16k points per
 element on the 8-device mesh vs a single device, and attribute where the
 REPLICATED refit becomes the bottleneck.  The evolution (trajectory moves +
 branch GP queries) shards over points; the refit gathers the point set and
 factorizes an (N, N) gram per element on every device -- O(N^2) memory and
 O(N^3) flops replicated, so it must dominate at some N.
 
-Runs on the virtual CPU mesh (no multi-chip TPU hardware in this environment;
-the collective structure -- all-gather for the refit, shard-local evolution --
-is identical under GSPMD on ICI).
+Runs on the virtual CPU mesh, which shows the collective structure --
+all-gather for the refit, shard-local evolution -- but no device time; the
+four-card comparison on real GPUs is ``python chip_smoke.py --four-cards``.
 
 Usage: python benchmarks/bench_multichip.py [--sizes 2048,4096,8192]
 """

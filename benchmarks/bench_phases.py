@@ -46,11 +46,6 @@ def main():
     fit = jax.jit(lambda d: fit_gp_states(gps.diag.params, gps.offdiag.params, d))
     timeit("fit_gp_states", fit, density)
 
-    fit_warm = jax.jit(
-        lambda d, p: fit_gp_states(gps.diag.params, gps.offdiag.params, d, prev=p)
-    )
-    timeit("fit_gp_states (warm)", fit_warm, density, gps)
-
     ev = jax.jit(
         lambda d, s: evolve_step("SAC", 2000.0, 1.0, d, gp_dist_all, s)
     )
@@ -62,4 +57,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-# (fit_warm timing appended below via the module main)

@@ -1,5 +1,5 @@
-"""Instrumented single-step benchmark probe: prints phase timings so slow/hung
-TPU compiles can be localized.  Usage: python benchmarks/bench_probe.py [N]."""
+"""Instrumented single-step benchmark probe: prints phase timings so slow or hung
+compiles can be localized.  Usage: python benchmarks/bench_probe.py [N]."""
 
 import sys
 import time

@@ -1,4 +1,4 @@
-"""Per-tick channel attribution of the div-6 booster divergence (VERDICT r4
+"""Per-tick channel attribution of the div-6 booster divergence (round-4
 task 2).
 
 The decompose harness (benchmarks/decompose.py, --gp off --labels carried,

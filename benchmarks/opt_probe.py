@@ -1,6 +1,6 @@
 """Run the test_opt scenario on the CURRENT backend and report conservation.
 
-Discriminates TPU-specific optimizer misbehavior from physics/config issues.
+Discriminates backend-specific optimizer misbehavior from physics/config issues.
 """
 
 import os

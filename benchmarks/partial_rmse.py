@@ -73,14 +73,14 @@ def main():
     gple_p = np.asarray(gple_p0)
     se_p0 = np.interp(gple_t, se.times, se.populations[:, 0])
     # frames strictly past the DVR horizon would interp-clamp to the last
-    # DVR population and bias the RMSE (ADVICE r3): side="right" keeps
+    # DVR population and bias the RMSE: side="right" keeps
     # frames at the horizon, drops frames past it
     n_cmp = min(len(gple_t),
                 int(np.searchsorted(gple_t, se.times[-1], side="right")))
     rmse = float(np.sqrt(np.mean((gple_p[:n_cmp] - se_p0[:n_cmp]) ** 2)))
     truncated = bool(gple_t[-1] < se.times[-1])
     # a truncated window is NOT a parity headline -- mark it in the metric
-    # name itself so the number can never be quoted as one (VERDICT r3)
+    # name itself so the number can never be quoted as one
     tag = " [PARTIAL WINDOW -- not a parity number]" if truncated else ""
     print(json.dumps({
         "metric": f"Tully-{opts.model} population RMSE vs DVR "

@@ -1,5 +1,5 @@
-"""gple_tpu: a TPU-native JAX framework for Gaussian-process mixed quantum-classical
-Liouville dynamics on the Tully scattering models.
+"""gple_tpu: a JAX framework for Gaussian-process mixed quantum-classical
+Liouville dynamics on the Tully scattering models, run on NVIDIA GPUs.
 
 This is a ground-up re-design (not a port) of the capabilities of the reference
 C++/Eigen/MKL code base ``kaigu1997/gaussian_process_liouville_equation``:
@@ -10,8 +10,8 @@ C++/Eigen/MKL code base ``kaigu1997/gaussian_process_liouville_equation``:
   (reference ``schrodinger_equation/``) and grid MQCLE Trotter solver
   (reference ``liouville_equation/``).
 * :mod:`gple_tpu.ops`       -- batched real and complex Gaussian-process kernels
-  (reference ``kernel.cpp``/``complex_kernel.cpp``), including Pallas TPU kernels
-  for the hot Gram-matrix path.
+  (reference ``kernel.cpp``/``complex_kernel.cpp``) and the SPD linear algebra
+  of the refits.
 * :mod:`gple_tpu.gp`        -- constrained hyperparameter optimization (reference
   ``opt.cpp``) using jit-compiled gradient optimizers and autodiff.
 * :mod:`gple_tpu.sampler`   -- Metropolis phase-space sampler with displacement and
@@ -24,17 +24,18 @@ C++/Eigen/MKL code base ``kaigu1997/gaussian_process_liouville_equation``:
   (new capability; the reference is single-process shared-memory only).
 
 All compute-path code is pure-functional JAX: static shapes, ``vmap`` over points
-and density-matrix elements, ``lax.scan`` over time, and batched linear algebra
-that maps onto the TPU MXU.
+and density-matrix elements, ``lax.scan`` over time, and batched f64 linear
+algebra (cuSOLVER / cuBLAS on the GPU).
 """
 
 import jax as _jax
 
-# The TPU's default f32 matmul runs reduced-precision (bf16-based) passes
-# with ~1e-3 relative rounding -- measured as a 0.8% population error per
-# refit and per-tick noise on the control-variate branch differences.  This
-# framework's conservation checks demand full f32/f64 semantics everywhere,
-# so pin the matmul precision package-wide (no-op on CPU).
+# On an NVIDIA GPU the default f32 matmul may run in TF32 (~1e-3 relative
+# rounding, about three decimal digits).  Reduced-precision passes were
+# measured as a 0.8% population error per refit and per-tick noise on the
+# control-variate branch differences; the conservation checks demand full
+# f32/f64 semantics everywhere, so pin the matmul precision package-wide
+# (no-op on CPU).
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from gple_tpu.utils.constants import HBAR, PLANCK_H

@@ -1,6 +1,6 @@
 """MQCLE trajectory dynamics: the backward-branching evolver.
 
-TPU-first re-design of the reference evolver (``evolve.cpp``):
+Re-design of the reference evolver (``evolve.cpp``):
 
 * coupling-region test                       -- ``evolve.cpp:53-100``
 * adiabatic leapfrog                         -- ``evolve.cpp:125-148``
@@ -20,8 +20,8 @@ Design notes:
   and blended by the (vectorized) coupling mask -- branch-free control flow
   for XLA.  With the reference's CouplingCriterion = 0 the mask is always
   true, matching its behavior exactly.
-* Complex density values are RI arrays (trailing axis 2 = Re/Im; complex128 is
-  not a TPU type): phase factors become rotations, and the off-diagonal
+* Complex density values are RI arrays (trailing axis 2 = Re/Im, see
+  :mod:`gple_tpu.utils.ri`): phase factors become rotations, and the off-diagonal
   rotation / branch recombination expand into explicit Re/Im arithmetic.
 * Distribution access follows the (dist_fn, dist_params) convention of the
   sampler: ``dist_fn(dist_params, pts (3, M, PhaseDim)) -> (3, M, 2)`` RI,

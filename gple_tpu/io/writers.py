@@ -27,7 +27,7 @@ from typing import Optional
 
 import numpy as np
 
-try:  # optional C++ fast writer (native/fastio.cpp)
+try:  # optional C fast writer (native/fastio.c, built by make -C native)
     from gple_tpu.io import fastio as _fastio
 except Exception:  # pragma: no cover - extension not built
     _fastio = None

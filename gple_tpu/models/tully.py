@@ -1,4 +1,4 @@
-"""Tully scattering models and basis transforms, batched for TPU.
+"""Tully scattering models and basis transforms, batched over points.
 
 Physics layer of the framework: the three standard one-dimensional two-surface
 scattering models (Simple Avoided Crossing, Dual Avoided Crossing, Extended

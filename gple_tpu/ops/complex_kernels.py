@@ -1,6 +1,6 @@
 """Complex Gaussian-process kernel for the off-diagonal density-matrix element.
 
-TPU-first re-design of the reference CGPR stack
+Re-design of the reference CGPR stack
 (``gaussian_process_liouville_equation/complex_kernel.{h,cpp}``):
 
 The complex GP over f = f_R + i f_I uses a covariance and a pseudo-covariance
@@ -23,14 +23,11 @@ prediction mean = K_* v + Kt_* conj(v); LOOCV error, variance, optimal
 magnitude, and the five-auxiliary-kernel purity integral follow the reference
 formulas cited inline.
 
-TPU representation: **complex128 does not exist on TPU**, so every complex
-quantity here is a trailing-axis-2 float64 RI array (see
-:mod:`gple_tpu.utils.ri`) and every complex matrix is an explicit (re, im)
-pair of float64 matrices; all O(N^3)/O(M N^2) contractions are real dots that
-map straight onto the MXU.  The Hermitian Schur inverse comes from the real
-N x N block identity Re(P) = (A + B A^-1 B)^-1, Im(P) = -A^-1 B Re(P), and
-prediction-path matmuls run in float32 (see kernels.predict_impl).  As with
-the real kernel,
+Representation: every complex quantity here is a trailing-axis-2 float64 RI
+array (see :mod:`gple_tpu.utils.ri`) and every complex matrix is an explicit
+(re, im) pair of float64 matrices; all O(N^3)/O(M N^2) contractions are real
+f64 dots.  The augmented system is solved through its real SPD embedding
+(see :func:`fit_complex`).  As with the real kernel,
 the reference's hand-derived gradients (complex_kernel.cpp:379-590) are
 replaced by ``jax.grad``.
 """
@@ -147,21 +144,6 @@ class ComplexTrainState(NamedTuple):
     #: import-time dtype); fit_complex always supplies it.
     chirp_k: jnp.ndarray
 
-    def augmented_inverse(self) -> jnp.ndarray:
-        """Reconstruct W = M^-1 of the real SPD embedding from the stored
-        P/Q blocks (inverts the linear map in fit_complex's docstring) --
-        the warm start for the next tick's refit."""
-        w11 = self.p_re + self.q_re
-        w22 = self.p_re - self.q_re
-        w21 = self.p_im - self.q_im
-        w12 = -(self.p_im + self.q_im)
-        return jnp.block([[w11, w12], [w21, w22]])
-
-    def diag_blocks(self):
-        """(W11, W22) of the SPD embedding -- the warm starts for the
-        ``block_diag`` fit path (corr = 0, where W12 = W21 = 0 exactly)."""
-        return self.p_re + self.q_re, self.p_re - self.q_re
-
 
 def estimate_chirp(features, labels_ri) -> jnp.ndarray:
     """|label|-weighted LSQ estimate of the local fringe wavevector k.
@@ -206,7 +188,7 @@ def estimate_chirp(features, labels_ri) -> jnp.ndarray:
 
 
 def fit_complex(params: ComplexKernelParams, features, labels,
-                chirp: bool = False, w_warm=None,
+                chirp: bool = False,
                 block_diag: bool = False) -> ComplexTrainState:
     """Factorize the augmented training system (TrainingComplexKernel ctor,
     complex_kernel.cpp:221-268).  ``labels`` is (N, 2) RI.
@@ -218,13 +200,13 @@ def fit_complex(params: ComplexKernelParams, features, labels,
         M = [[K + R, C], [C, K - R]]   (2N x 2N),
 
     obtained by splitting v = a + ib, y = c + id:  M [a; b] = [c; d].  One
-    mixed-precision ``psd_inverse`` of M replaces the former f32 Schur-block
-    chain P = (K - Kt K^-1 Kt*)^-1: that chain subtracts O(1) matrices that
-    cancel to O(noise^2) whenever corr -> +-1 with matched Re/Im kernels
-    (there K+R and K-R stay benign but the Schur complement collapses), so in
-    f32 the computed Schur block was pure rounding noise and the refined
-    solve diverged (v ~ 1e24 -- the round-1 headline-bench NaN).  M has no
-    cancellation anywhere: its conditioning IS the augmented system's.
+    ``psd_inverse`` of M replaces the former Schur-block chain
+    P = (K - Kt K^-1 Kt*)^-1: that chain subtracts O(1) matrices that cancel
+    to O(noise^2) whenever corr -> +-1 with matched Re/Im kernels (there K+R
+    and K-R stay benign but the Schur complement collapses), so the computed
+    Schur block was rounding noise and the refined solve diverged (v ~ 1e24).
+    M has no cancellation anywhere: its conditioning IS the augmented
+    system's.
 
     P and Q (the reference's upper/lower-left inverse blocks,
     complex_kernel.cpp:264-268) map linearly from W = M^-1:
@@ -235,30 +217,22 @@ def fit_complex(params: ComplexKernelParams, features, labels,
     ``block_diag`` (STATIC; caller guarantees corr = 0, the moment-mode
     production structure): the coupling block C = 2 sigma^2 corr K_C
     vanishes, so M = blockdiag(K + R, K - R) and W = blockdiag(W11, W22) --
-    TWO (N, N) SPD inverses instead of one (2N, 2N), a 4x matmul saving on
-    the step's dominant cost (the (2N)^3 Newton-Schulz chain).  ``w_warm``
-    is then the (W11, W22) pair from :meth:`ComplexTrainState.diag_blocks`.
-    The refinement of v below runs against the full augmented operator
+    TWO (N, N) SPD inverses instead of one (2N, 2N), a 4x flop saving on
+    the fit's dominant cost.  The refinement of v below runs against the
+    full augmented operator
     either way, so any corr != 0 leakage would surface as a v residual, not
     silent error.
     """
-    from gple_tpu.ops.linalg import psd_inverse, psd_inverse_warm
+    from gple_tpu.ops.linalg import psd_inverse, psd_inverse_batched
 
     n = features.shape[-2]
     k64, kt_re64, kt_im64 = covariance_matrices(params, features, features, same=True)
     if block_diag:
         b1 = k64 + kt_re64
         b2 = k64 - kt_re64
-        if w_warm is None:
-            winv = jax.vmap(psd_inverse)(jnp.stack([b1, b2]))
-            w11, w22 = winv[0], winv[1]
-        else:
-            # unrolled: the warm path's lax.cond under vmap would batch into
-            # a select that executes BOTH branches (see storage.fit_gp_states)
-            w11 = psd_inverse_warm(b1, w_warm[0])
-            w22 = psd_inverse_warm(b2, w_warm[1])
+        winv = psd_inverse_batched(jnp.stack([b1, b2]))
         return finish_complex_fit(params, features, labels,
-                                  k64, kt_re64, kt_im64, w11, w22,
+                                  k64, kt_re64, kt_im64, winv[0], winv[1],
                                   chirp=chirp)
     labels = jnp.asarray(labels)
     rescale = RESCALE_MAXIMUM / jnp.maximum(jnp.max(ri.absval(labels)), 1e-30)
@@ -271,7 +245,7 @@ def fit_complex(params: ComplexKernelParams, features, labels,
     else:
         chirp_k = jnp.zeros(features.shape[-1], dtype=features.dtype)
     m = jnp.block([[k64 + kt_re64, kt_im64], [kt_im64, k64 - kt_re64]])
-    w = psd_inverse(m) if w_warm is None else psd_inverse_warm(m, w_warm)
+    w = psd_inverse(m)
     w11, w12 = w[:n, :n], w[:n, n:]
     w21, w22 = w[n:, :n], w[n:, n:]
     p_re = 0.5 * (w11 + w22)
@@ -360,35 +334,20 @@ def predict_complex(state: ComplexTrainState, test_features, with_variance: bool
 
     Returns RI means: ``(mean_raw (M, 2), var (M,), cutoff_raw (M, 2))``.
     """
-    from functools import partial
-
-    from gple_tpu.ops.kernels import predict_impl
-
-    return predict_impl(
-        partial(_predict_complex_impl, dt_p=jnp.float64, with_variance=with_variance),
-        partial(_predict_complex_impl, dt_p=jnp.float32, with_variance=with_variance),
-        state, test_features,
-    )
-
-
-def _predict_complex_impl(state: ComplexTrainState, test_features, *, dt_p,
-                          with_variance: bool):
-    p = jax.tree.map(lambda a: jnp.asarray(a).astype(dt_p), state.params)
+    p = state.params
     k_star, kt_re, kt_im = covariance_matrices(
-        p, test_features.astype(dt_p), state.features.astype(dt_p), same=False
+        p, test_features, state.features, same=False
     )
-    v32 = state.v.astype(dt_p)
-    mean = _mean_ri(k_star, kt_re, kt_im, v32).astype(jnp.float64)
+    mean = _mean_ri(k_star, kt_re, kt_im, state.v)
     # re-modulate the envelope prediction back to the lab frame (no-op when
     # chirp_k = 0); |mean| and the variance are frame-invariant so the
     # cutoff logic below is untouched
-    mean = ri.phase_mul(mean, test_features.astype(jnp.float64) @ state.chirp_k)
+    mean = ri.phase_mul(mean, test_features @ state.chirp_k)
     if not with_variance:
         return mean / state.rescale, None, mean / state.rescale
     # self-covariance k(x, x) = sigma^2 (m_R^2 + m_I^2 + noise^2)
     self_k = p.magnitude**2 * (p.real_magnitude**2 + p.imag_magnitude**2 + p.noise**2)
-    pr, pi = state.p_re.astype(dt_p), state.p_im.astype(dt_p)
-    qr, qi = state.q_re.astype(dt_p), state.q_im.astype(dt_p)
+    pr, pi, qr, qi = state.p_re, state.p_im, state.q_re, state.q_im
     # Re(K_* P K_*^H): K_* real
     t1 = jnp.sum((k_star @ pr) * k_star, axis=-1)
     # Re(Kt_* conj(P) Kt_*^H)
@@ -400,7 +359,7 @@ def _predict_complex_impl(state: ComplexTrainState, test_features, *, dt_p,
     # Re(K_* conj(Q) conj(Kt_*)^T)
     u_re, u_im = k_star @ qr, -(k_star @ qi)
     t4 = jnp.sum(u_re * kt_re + u_im * kt_im, axis=-1)
-    var = (self_k - t1 - t2 - t3 - t4).astype(jnp.float64)
+    var = self_k - t1 - t2 - t3 - t4
     cut = cutoff_factor(ri.absval(mean), var)
     return mean / state.rescale, var, ri.scale(mean, cut) / state.rescale
 

@@ -1,6 +1,6 @@
 """Exact grid-MQCLE solver: second verification oracle.
 
-A TPU-native re-design of the reference ``liouville_equation/`` subproject:
+A JAX re-design of the reference ``liouville_equation/`` subproject:
 Trotter-split propagation of the partial-Wigner-transformed density matrix
 rho(x, p) on a phase-space grid,
 
@@ -16,7 +16,7 @@ Reference parity map (file:line into /root/reference):
 * force basis construction:          ``liouville_equation/pes.cpp:238-347``
 * grids / dt / init / stop logic:    ``liouville_equation/main.cpp:30-341``
 
-Design notes (TPU-first): the density matrix is a single ``(N, N, 2, 2)``
+Design notes: the density matrix is a single ``(N, N, 2, 2)``
 complex array; the reference's hand-rolled ``ComplexMatrixMatrix`` container and
 per-grid LAPACK/DFTI calls become batched einsums and ``jnp.fft`` along grid
 axes.  Per-grid transform matrices are precomputed once with the closed-form

@@ -1,9 +1,9 @@
 """Exact DVR Schroedinger solver: the primary verification oracle.
 
-A TPU-native re-design of the reference ``schrodinger_equation/`` subproject:
+A JAX re-design of the reference ``schrodinger_equation/`` subproject:
 Colbert-Miller discrete variable representation with reflective, periodic, or
 Manolopoulos-absorbing boundaries, spectral or RK4 propagation, and a
-matmul-formulated Wigner transform that runs on the MXU.
+matmul-formulated Wigner transform.
 
 Reference parity map (file:line into /root/reference):
 
@@ -14,7 +14,7 @@ Reference parity map (file:line into /root/reference):
 * <E>, <x>, <p> via H and FD momentum matrix:  ``schrodinger_equation/general.cpp:443-478``
 * driver grid/dt/stop logic:                   ``schrodinger_equation/main.cpp:41-323``
 
-Design notes (TPU-first):
+Design notes:
 
 * The Hamiltonian is built once as dense ``(2N, 2N)`` arrays from broadcasted
   index grids -- no loops.
@@ -189,7 +189,7 @@ def wigner_transform(psi: jnp.ndarray, x_grid, p_grid, dx: float, boundary: str)
 
     W_ij(x, p) = sum_y exp(2 i p y / hbar) psi_i(x - y) conj(psi_j(x + y))
                  * dx / (pi hbar)
-    formulated as one complex matmul per element pair (MXU-friendly).
+    formulated as one complex matmul per element pair.
     """
     n = x_grid.shape[0]
     psi2 = psi.reshape(2, n)

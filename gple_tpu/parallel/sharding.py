@@ -10,7 +10,7 @@ Here that axis shards across a ``jax.sharding.Mesh``:
 * the GP refit gathers the (small) point set and factorizes replicated --
   a Cholesky at N = 1024 is far below the threshold where distributing it
   would pay for its collectives;
-* observables are sharded reductions; GSPMD inserts the psums over ICI.
+* observables are sharded reductions; GSPMD inserts the psums.
 
 This module provides the mesh plumbing and a sharded fit+evolve step used by
 ``__graft_entry__.dryrun_multichip`` and by multi-chip benchmarks.
@@ -67,10 +67,9 @@ def gps_sharding(mesh: Mesh):
     Round-2 scaling measurement: with the refit REPLICATED, every device
     factorizes the full (N, N) gram, and the refit/evolve work ratio grows
     to 8.4 at N = 512 -- the replicated refit bounds scaling beyond N ~ 4k.
-    Sharding the training-state rows makes the Newton-Schulz matmul chain a
-    distributed matmul (GSPMD turns K @ X with X row-sharded into
-    shard-local blocks plus one reduce over ICI per iteration), and the
-    predict-time cross-gram contractions become sharded reductions."""
+    Sharding the training-state rows makes the predict-time cross-gram
+    contractions (k_star @ K^-1) sharded reductions; the Cholesky itself is
+    placed by GSPMD."""
     def sh(*spec):
         return NamedSharding(mesh, P(*spec))
 
@@ -113,7 +112,7 @@ def make_step_fn(model: str, mass: float, dt: float, block_diag: bool = True):
     def step(density: Density, gps: GPStates):
         new_density = evolve_step(model, mass, dt, density, gp_dist_all, gps)
         new_gps = fit_gp_states(gps.diag.params, gps.offdiag.params, new_density,
-                                prev=gps, block_diag=block_diag)
+                                block_diag=block_diag)
         return new_density, new_gps
 
     return step
@@ -124,8 +123,7 @@ def sharded_step_fn(model: str, mass: float, dt: float, mesh: Mesh,
     """jit the full step with points sharded over the mesh.
 
     ``shard_refit=True`` (default) also row-shards the refit OUTPUT (the
-    (N, N) inverses), distributing the Newton-Schulz factorization;
-    ``False`` keeps the GP state replicated (each device refits the full
+    (N, N) inverses); ``False`` keeps the GP state replicated (each device refits the full
     gram -- the round-2 behavior, kept for A/B scaling measurements)."""
     step = make_step_fn(model, mass, dt)
     dsh = density_sharding(mesh)

@@ -1,6 +1,6 @@
 """Metropolis phase-space sampler, fully batched on device.
 
-TPU-first re-design of the reference sampler (``mc.cpp``):
+Re-design of the reference sampler (``mc.cpp``):
 
 * initial Gaussian phase-space distribution             -- ``mc.cpp:30-50``
 * Metropolis Markov chains                              -- ``mc.cpp:143-188``
@@ -13,7 +13,7 @@ Design notes:
 
 * The reference walks each point's chain on its own thread; here ONE
   ``lax.scan`` advances ALL N walkers per step, so each step is a single
-  batched distribution evaluation (a GP predict = matmul) on the MXU.
+  batched distribution evaluation (a GP predict = matmul).
 * Distribution functions are pure ``dist_fn(dist_params, pts)`` pairs -- the
   callable is static (compiled once per kind) while the parameters (GP state)
   flow through as a pytree, so refits never retrace.
@@ -151,8 +151,8 @@ def _autocorrelation_sweep(key, dist_fn, dist_params, pts, displacement):
     half = length // 2
     centered = chain - jnp.mean(chain, axis=0, keepdims=True)  # (L, M, D)
     # FFT autocorrelation over the step axis: sum_i c_i . c_{i+j}
-    # (f32: the TPU FFT has no f64 operand support, and this is a tuning
-    # statistic, not an observable)
+    # (f32: this is a tuning statistic, not an observable, and the step
+    # count it picks is insensitive to f32 rounding)
     nfft = 2 * length
     f = jnp.fft.rfft(centered.astype(jnp.float32), n=nfft, axis=0)
     raw = jnp.fft.irfft(f * jnp.conj(f), n=nfft, axis=0)[:length].astype(
@@ -220,9 +220,8 @@ def element_monte_carlo(
     tuning sweeps and the chains instead of ``dist_fn``; the returned LABELS
     always come from the exact ``dist_fn`` (one batched call).  The driver
     passes a grid-sampled surrogate of the backward-branching predictor
-    here: a chain step through the full predictor costs ~40 ms on the
-    remote TPU (kernel-launch bound -- ~100 kernels per step), so a tuned
-    2048-step walk was ~80 s; the surrogate's bilinear interpolation is ~10
+    here: a chain step through the full predictor is ~100 small kernels
+    (launch-bound), while the surrogate's bilinear interpolation is ~10
     kernels per step for the same stationary shape.
 
     Returns (new_points, new_rho, updated MCParameters).

@@ -1,6 +1,6 @@
 """Density-matrix point storage and GP-state containers.
 
-TPU-first replacement for the reference's ``QuantumStorage`` triangular
+Replacement for the reference's ``QuantumStorage`` triangular
 container (``gaussian_process_liouville_equation/storage.h:106-329``): instead
 of per-element ``std::vector``s of points with dynamic emptiness, every
 lower-triangular element holds a FIXED number of points in one stacked array
@@ -9,7 +9,7 @@ reference's inverse ``IsSmall`` flags).  Static shapes keep the whole pipeline
 jittable; inactive elements simply contribute zeros.
 
 Complex density values are stored as trailing-axis-2 float64 RI arrays
-(complex128 is not a TPU type; see :mod:`gple_tpu.utils.ri`).
+(see :mod:`gple_tpu.utils.ri`).
 
 Element ordering is row-major lower-triangular like the reference's loops
 (``for iPES { for jPES <= iPES }``): index 0 = (0,0), 1 = (1,0), 2 = (1,1).
@@ -123,18 +123,11 @@ def fit_gp_states(
     diag_params: RK.KernelParams,
     offdiag_params: CK.ComplexKernelParams,
     density: Density,
-    prev: "GPStates" = None,
     off_extra=None,
     block_diag: bool = False,
 ) -> GPStates:
     """Refactorize all element GPs from the current points (the reference
     rebuilds TrainingKernels every tick, main.cpp:176).
-
-    ``prev`` (the previous tick's states) warm-starts the TPU Newton-Schulz
-    inverses -- per-tick point motion is small, so the stale inverse is ~3
-    quadratic iterations from converged, skipping the 32-iteration cold
-    stage.  The warm path guards itself (ops/linalg.py) and falls back to a
-    cold factorization whenever the cloud jumped.
 
     ``off_extra`` = (points (K, PhaseDim), rho (K, 2)) joins the OFF-DIAGONAL
     fit only: an asymmetric point budget for the coherence, whose fit is the
@@ -146,8 +139,11 @@ def fit_gp_states(
     ``block_diag`` (STATIC): the caller guarantees the off-diagonal corr
     parameter is structurally 0 (the moment optimizer's invariant), so the
     complex fit's SPD embedding splits into two (N, N) blocks -- 4x fewer
-    matmul flops on the fit's dominant term (see CK.fit_complex)."""
-    from gple_tpu.ops.linalg import psd_inverse_batched, psd_inverse_warm_batched
+    flops on the fit's dominant term (see CK.fit_complex).  All four SPD
+    systems of the step -- the two diagonal element kernels and the two
+    complex blocks -- are then inverted in one batched call (reference hot
+    path kernel.cpp:281-283)."""
+    from gple_tpu.ops.linalg import psd_inverse_batched
 
     diag_idx = jnp.asarray(DIAG_INDICES)
     diag_pts = density.points[diag_idx]
@@ -158,71 +154,31 @@ def fit_gp_states(
         off_pts = jnp.concatenate([off_pts, off_extra[0]], axis=0)
         off_rho = jnp.concatenate([off_rho, off_extra[1]], axis=0)
 
-    import os as _os
-    if block_diag and _os.environ.get("GPLE_BATCHED_NS", "1") != "0":
-        # THE production path: all four SPD systems of the step -- the two
-        # diagonal element kernels and the two corr=0 complex blocks -- are
-        # solved in batched Newton-Schulz chains.  The chain is sequential,
-        # so stacking turns 4 chains of small matmuls into 1 chain of 4x
-        # larger ones: same latency, 4x the MXU work per step (VERDICT r4
-        # task 7; reference hot path kernel.cpp:281-283).
-        # GPLE_BATCHED_NS=0 restores the round-4 sequential path (A/B knob).
-        k_d = jax.vmap(lambda p, x: RK.kernel_matrix(p, x, x, True))(
-            diag_params, diag_pts
-        )
-        k64, kt_re64, kt_im64 = CK.covariance_matrices(
-            offdiag_params, off_pts, off_pts, same=True
-        )
-        k_o = jnp.stack([k64 + kt_re64, k64 - kt_re64])
-        same_shape = off_pts.shape[0] == diag_pts.shape[1]
-        if prev is None:
-            if same_shape:
-                winv = psd_inverse_batched(jnp.concatenate([k_d, k_o]))
-                kinv_d, w11, w22 = winv[:2], winv[2], winv[3]
-            else:
-                kinv_d = psd_inverse_batched(k_d)
-                winv_o = psd_inverse_batched(k_o)
-                w11, w22 = winv_o[0], winv_o[1]
-        else:
-            warm_o = jnp.stack(prev.offdiag.diag_blocks())
-            if same_shape:
-                winv = psd_inverse_warm_batched(
-                    jnp.concatenate([k_d, k_o]),
-                    jnp.concatenate([prev.diag.kinv, warm_o]),
-                )
-                kinv_d, w11, w22 = winv[:2], winv[2], winv[3]
-            else:
-                kinv_d = psd_inverse_warm_batched(k_d, prev.diag.kinv)
-                winv_o = psd_inverse_warm_batched(k_o, warm_o)
-                w11, w22 = winv_o[0], winv_o[1]
-        diag = jax.vmap(RK.finish_real_fit)(
-            diag_params, diag_pts, diag_rho, k_d, kinv_d
-        )
-        off = CK.finish_complex_fit(
-            offdiag_params, off_pts, off_rho, k64, kt_re64, kt_im64, w11, w22
-        )
-    elif prev is None:
+    if not block_diag:
         diag = jax.vmap(RK.fit_real)(diag_params, diag_pts, diag_rho)
-        off = CK.fit_complex(offdiag_params, off_pts, off_rho,
-                             block_diag=block_diag)
+        off = CK.fit_complex(offdiag_params, off_pts, off_rho)
+        return GPStates(diag=diag, offdiag=off, active=density.active)
+
+    k_d = jax.vmap(lambda p, x: RK.kernel_matrix(p, x, x, True))(
+        diag_params, diag_pts
+    )
+    k64, kt_re64, kt_im64 = CK.covariance_matrices(
+        offdiag_params, off_pts, off_pts, same=True
+    )
+    k_o = jnp.stack([k64 + kt_re64, k64 - kt_re64])
+    if off_pts.shape[0] == diag_pts.shape[1]:
+        winv = psd_inverse_batched(jnp.concatenate([k_d, k_o]))
+        kinv_d, w11, w22 = winv[:2], winv[2], winv[3]
     else:
-        # UNROLLED over the two diagonal elements: under vmap the warm
-        # path's lax.cond batches into a select that executes BOTH branches,
-        # which costs more than the cold path it was meant to skip
-        states = []
-        for d, elem in enumerate(DIAG_INDICES):
-            p = jax.tree.map(lambda a: a[d], diag_params)
-            states.append(RK.fit_real(
-                p, density.points[elem], density.rho[elem, :, 0],
-                kinv_warm=prev.diag.kinv[d],
-            ))
-        diag = jax.tree.map(lambda *xs: jnp.stack(xs), *states)
-        w_warm = (prev.offdiag.diag_blocks() if block_diag
-                  else prev.offdiag.augmented_inverse())
-        off = CK.fit_complex(
-            offdiag_params, off_pts, off_rho,
-            w_warm=w_warm, block_diag=block_diag,
-        )
+        kinv_d = psd_inverse_batched(k_d)
+        winv_o = psd_inverse_batched(k_o)
+        w11, w22 = winv_o[0], winv_o[1]
+    diag = jax.vmap(RK.finish_real_fit)(
+        diag_params, diag_pts, diag_rho, k_d, kinv_d
+    )
+    off = CK.finish_complex_fit(
+        offdiag_params, off_pts, off_rho, k64, kt_re64, kt_im64, w11, w22
+    )
     return GPStates(diag=diag, offdiag=off, active=density.active)
 
 

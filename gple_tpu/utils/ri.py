@@ -1,9 +1,10 @@
 """Real-imaginary (RI) representation of complex values.
 
-TPU XLA supports float64 but NOT complex128 ("Element type C128 is not
-supported on TPU"), so every complex quantity on the compute path -- density
-values, GP predictions, phases, the complex-kernel algebra -- is carried as a
-trailing-axis-2 float array ``z[..., 0] = Re, z[..., 1] = Im``.  The helpers
+Every complex quantity on the compute path -- density values, GP
+predictions, phases, the complex-kernel algebra -- is carried as a
+trailing-axis-2 float array ``z[..., 0] = Re, z[..., 1] = Im``.  The system was
+first written for an accelerator without a complex128 type; whether native
+complex128 is faster on the GPU is not measured yet.  The helpers
 here keep that arithmetic readable; complex dtypes appear only in host-side
 analysis and the CPU oracles.
 """

@@ -2,8 +2,8 @@
 
 One scalar per reoptimization shrinks all off-diagonal labels (main cloud +
 carried booster slots) so the MC purity never exceeds the run's initial
-purity -- the clamp on the carried-booster feedback loop whose divergence is
-recorded in benchmarks/tpu_r03/boost_n256_div6_cpu.json.  The move mirrors
+purity -- the clamp on the carried-booster feedback loop, measured to
+diverge on the CPU at N = 256 (GPLEConfig.coh_boost_rescale).  The move mirrors
 the reference's conservation rescale for population+energy
 (test/gpr.cpp:913-992).
 """
@@ -23,7 +23,7 @@ def driver():
     # function-scoped: the inflation test mutates the driver, and under
     # reordered test execution a shared instance sitting exactly at the
     # purity budget can rescale by s marginally below 1.0 and break the
-    # no-op test's exact-equality assertion (ADVICE r3)
+    # no-op test's exact-equality assertion
     cfg = GPLEConfig(
         model="SAC", mass=2000.0, x0=-2.0, p0=20.0, sigma_p0=1.0,
         output_time=2.0, reopt_time=2.0, dt=1.0, num_points=16,

@@ -221,14 +221,27 @@ def test_block_diag_fit_matches_full_at_corr_zero():
                                float(CK.purity_complex(st_full)), rtol=1e-9)
 
 
-def test_block_diag_warm_start_roundtrip():
-    """diag_blocks() warm starts reproduce the cold block-diagonal fit."""
+def test_batched_refit_matches_element_fits():
+    """The step's refit inverts all four SPD systems in one batched call
+    (storage.fit_gp_states, block_diag); it must reproduce the separate
+    per-element fits."""
+    from gple_tpu.ops import kernels as RK
+    from gple_tpu.storage import Density, fit_gp_states
+
     x, y = make_dataset(24)
-    p = default_params()._replace(corr=jnp.asarray(0.0))
-    st_cold = CK.fit_complex(p, x, to_ri(y), block_diag=True)
-    st_warm = CK.fit_complex(p, x, to_ri(y), block_diag=True,
-                             w_warm=st_cold.diag_blocks())
-    np.testing.assert_allclose(np.asarray(st_warm.v), np.asarray(st_cold.v),
+    pts = jnp.stack([x, x * 1.1, x * 0.9])
+    rho = jnp.stack([to_ri(jnp.abs(y)), to_ri(y), to_ri(0.5 * jnp.abs(y))])
+    dens = Density(points=pts, rho=rho, active=jnp.asarray([True, True, True]))
+    dp = RK.KernelParams(magnitude=jnp.ones(2),
+                         lengths=jnp.asarray([[0.8, 1.2], [1.0, 1.5]]),
+                         noise=jnp.full(2, 1e-2))
+    op = default_params()._replace(corr=jnp.asarray(0.0))
+    gps = fit_gp_states(dp, op, dens, block_diag=True)
+    st_off = CK.fit_complex(op, pts[1], rho[1], block_diag=True)
+    np.testing.assert_allclose(np.asarray(gps.offdiag.v), np.asarray(st_off.v),
                                rtol=1e-9, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(st_warm.p_re),
-                               np.asarray(st_cold.p_re), rtol=1e-8, atol=1e-12)
+    for d, elem in enumerate((0, 2)):
+        p = jax.tree.map(lambda a: a[d], dp)
+        st = RK.fit_real(p, pts[elem], rho[elem, :, 0])
+        np.testing.assert_allclose(np.asarray(gps.diag.alpha[d]),
+                                   np.asarray(st.alpha), rtol=1e-9, atol=1e-12)

@@ -116,7 +116,7 @@ def test_kinetic_energy_matches_quadrature(w10):
 
 
 def test_full_ard_beats_axis_aligned_on_tilted_snapshot():
-    """The measured comparison VERDICT asked for: cross terms must cut the
+    """The measured comparison a round review asked for: cross terms must cut the
     snapshot-fit MSE on a tilted distribution."""
     g = np.linspace(-6.0, 6.0, 61)
     da = (g[1] - g[0]) ** 2

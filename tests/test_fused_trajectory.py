@@ -3,8 +3,8 @@
 ``GPLEDriver._advance_fused`` folds whole reoptimization periods -- ticks,
 scheduled moment reopts, extra-point regeneration, observables -- into one
 ``_ticks_scan_fused`` dispatch (driver.py), syncing with the host once per
-segment.  It replaces the chunked host loop on the remote TPU backend where
-blocking round-trips dominate wall time, so it must take IDENTICAL physics
+segment.  It replaces the chunked host loop's blocking round-trips, so it
+must take IDENTICAL physics
 decisions: same RNG stream (pre-split keys), same reopt parameters, same
 conservation-drift checks, same emitted records.  Mirrors the per-tick
 control flow of the reference main program (main.cpp:135-202), which has a

@@ -1,17 +1,12 @@
-"""TPU linear algebra: exact matmul-only inversion and refined solves."""
+"""SPD linear algebra of the refits: Cholesky inverse, its JVP rule, the
+batched form and refined solves."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gple_tpu.ops.linalg import (
-    _chol_matmul_inverse,
-    _direct_inverse,
-    _newton_schulz_inverse,
-    refine_solve,
-    triangular_inverse_lower,
-)
+from gple_tpu.ops.linalg import psd_inverse, psd_inverse_batched, refine_solve
 
 
 def gram_like(n, length=0.5, noise=1e-2, seed=0):
@@ -22,33 +17,30 @@ def gram_like(n, length=0.5, noise=1e-2, seed=0):
     return jnp.asarray(np.exp(-0.5 * d2 / length**2) + noise**2 * np.eye(n))
 
 
-def test_triangular_inverse_exact():
-    rng = np.random.default_rng(1)
-    for n in (32, 200, 513):
-        low = np.tril(rng.normal(size=(n, n)) * 0.3) + np.diag(1.0 + rng.uniform(size=n))
-        linv = np.asarray(triangular_inverse_lower(jnp.asarray(low)))
-        np.testing.assert_allclose(linv @ low, np.eye(n), atol=1e-8)
-
-
 @pytest.mark.parametrize("n,length", [(64, 0.5), (256, 0.3), (256, 2.0), (512, 4.0)])
-def test_chol_matmul_inverse_matches_direct(n, length):
-    """The TPU production inverse agrees with the direct Cholesky inverse
-    across the full conditioning range of framework kernels (up to ~1e7)."""
+def test_psd_inverse_matches_numpy(n, length):
+    """The production inverse is accurate across the conditioning range of
+    framework kernels (up to ~1e7) and exactly symmetric."""
     k = gram_like(n, length)
     cond = float(np.linalg.cond(np.asarray(k)))
-    x = np.asarray(_chol_matmul_inverse(k))
+    x = np.asarray(psd_inverse(k))
     res = np.abs(np.asarray(k) @ x - np.eye(n)).max()
     assert res < max(cond * 1e-12, 2e-8), (cond, res)
-    # symmetric
-    np.testing.assert_allclose(x, x.T, atol=1e-12 * np.abs(x).max())
+    np.testing.assert_array_equal(x, x.T)
+    ref = np.linalg.inv(np.asarray(k))
+    assert np.abs(x - ref).max() <= max(cond * 1e-12, 1e-9) * np.abs(ref).max()
 
 
-def test_chol_matmul_inverse_batched():
-    kb = jnp.stack([gram_like(128, 0.5, seed=1), gram_like(128, 1.0, seed=2)])
-    xb = np.asarray(_chol_matmul_inverse(kb))
-    for i in range(2):
-        res = np.abs(np.asarray(kb[i]) @ xb[i] - np.eye(128)).max()
-        assert res < 1e-6
+@pytest.mark.parametrize("b,n", [(1, 16), (4, 64), (4, 256)])
+def test_psd_inverse_batched_shapes(b, n):
+    """(B, N, N) in, (B, N, N) out, each slice the single-matrix inverse --
+    the refit's (4, N, N) stack of SPD systems."""
+    ks = jnp.stack([gram_like(n, 0.5 + 0.25 * i, seed=i) for i in range(b)])
+    xs = psd_inverse_batched(ks)
+    assert xs.shape == (b, n, n) and xs.dtype == ks.dtype
+    for i in range(b):
+        np.testing.assert_allclose(np.asarray(xs[i]), np.asarray(psd_inverse(ks[i])),
+                                   rtol=1e-12, atol=1e-12 * float(jnp.abs(xs[i]).max()))
 
 
 def test_refined_solve_accuracy():
@@ -56,37 +48,14 @@ def test_refined_solve_accuracy():
     k = gram_like(256, 2.0, seed=1)  # cond ~2e6
     rng = np.random.default_rng(2)
     y = jnp.asarray(rng.normal(size=256))
-    a = np.asarray(refine_solve(_chol_matmul_inverse(k), k, y, iters=3))
-    a_direct = np.asarray(_direct_inverse(k) @ y)
+    a = np.asarray(refine_solve(psd_inverse(k), k, y, iters=3))
+    a_direct = np.linalg.solve(np.asarray(k), np.asarray(y))
     denom = np.abs(a_direct).max()
     assert np.abs(a - a_direct).max() / denom < 1e-9
 
 
-def test_newton_schulz_fallback_moderate_cond():
-    """The NS path's production contract at moderate conditioning: the raw
-    inverse residual stays within the variance/cutoff tolerance (the only
-    consumer of the raw inverse) and ``refine_solve`` reaches full f64
-    accuracy through it.  With the single f64 continuation iteration the
-    floor is the squared f32 floor -- measured ~2e-2 at cond ~1e5, a <2%
-    variance error at the conditioning edge the pinned noise admits; the
-    cutoff smoothstep (1..2 sigma) is insensitive at that level."""
-    from gple_tpu.ops.linalg import refine_solve
-
-    k = gram_like(128, 0.4)  # cond ~1e4-1e5
-    x = jnp.asarray(_newton_schulz_inverse(k))
-    res = np.abs(np.asarray(k) @ np.asarray(x) - np.eye(128)).max()
-    assert res < 5e-2
-    rng = np.random.default_rng(5)
-    y = jnp.asarray(rng.normal(size=128))
-    sol = refine_solve(x, jnp.asarray(k), y, iters=5)
-    resid = float(jnp.max(jnp.abs(jnp.asarray(k) @ sol - y)))
-    assert resid < 1e-9, resid
-
-
 def test_custom_jvp_exact():
     """d(K^-1) = -K^-1 dK K^-1 through the custom rule."""
-    from gple_tpu.ops.linalg import psd_inverse
-
     k = gram_like(32, 0.7)
     dk = jnp.asarray(np.random.default_rng(3).normal(size=(32, 32)))
     dk = 0.5 * (dk + dk.T) * 1e-3
@@ -96,22 +65,32 @@ def test_custom_jvp_exact():
     np.testing.assert_allclose(np.asarray(jvp), expect, atol=1e-10)
 
 
-def test_warm_newton_schulz_converges_and_guards():
-    """Warm start from a slightly-stale inverse reaches full accuracy in the
-    3 quadratic iterations; a garbage warm start triggers the cold fallback."""
-    from gple_tpu.ops.linalg import _newton_schulz_inverse, _newton_schulz_warm
+def test_batched_jvp_exact():
+    """The batched inverse differentiates slice by slice with the same rule."""
+    ks = jnp.stack([gram_like(24, 0.6, seed=4), gram_like(24, 0.9, seed=5)])
+    rng = np.random.default_rng(6)
+    dks = rng.normal(size=(2, 24, 24)) * 1e-3
+    dks = jnp.asarray(0.5 * (dks + np.swapaxes(dks, -1, -2)))
+    _, jvp = jax.jvp(psd_inverse_batched, (ks,), (dks,))
+    for i in range(2):
+        kinv = np.asarray(psd_inverse(ks[i]))
+        np.testing.assert_allclose(np.asarray(jvp[i]),
+                                   -kinv @ np.asarray(dks[i]) @ kinv, atol=1e-10)
 
-    rng = np.random.default_rng(0)
-    a = rng.normal(size=(96, 96))
-    k0 = jnp.asarray(a @ a.T + 96 * np.eye(96))
-    kinv0 = _newton_schulz_inverse(k0)
-    # "next tick": small symmetric perturbation of K
-    b = rng.normal(size=(96, 96)) * 0.02
-    k1 = k0 + jnp.asarray(b + b.T)
-    warm = _newton_schulz_warm(k1, kinv0)
-    resid = float(jnp.max(jnp.abs(jnp.eye(96) - k1 @ warm)))
-    assert resid < 1e-9, resid
-    # garbage warm start: guard must fall back to the cold path
-    cold = _newton_schulz_warm(k1, jnp.full((96, 96), 1e6))
-    resid = float(jnp.max(jnp.abs(jnp.eye(96) - k1 @ cold)))
-    assert resid < 1e-9, resid
+
+def test_grad_through_inverse_matches_finite_difference():
+    """The optimizer's losses differentiate through the inverse: a scalar
+    quadratic form y^T K(l)^-1 y against central differences in l."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(20, 2))
+    y = jnp.asarray(rng.normal(size=20))
+
+    def loss(length):
+        d2 = jnp.sum((x[:, None, :] - x[None, :, :]) ** 2, axis=-1)
+        k = jnp.exp(-0.5 * d2 / length**2) + 1e-2 * jnp.eye(20)
+        return y @ psd_inverse(k) @ y
+
+    g = float(jax.grad(loss)(0.8))
+    h = 1e-5
+    fd = (float(loss(0.8 + h)) - float(loss(0.8 - h))) / (2 * h)
+    assert abs(g - fd) <= 1e-6 * max(1.0, abs(fd)), (g, fd)

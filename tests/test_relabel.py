@@ -3,8 +3,8 @@
 `GPLEDriver._track_clouds` re-walks a drifted element's points and relabels
 them from the backward-branching predictor -- the reference's mid-run seeding
 machinery (mc.cpp:407-537) applied on drift.  Round 3 isolated this relabel as
-the booster divergence trigger (purity 5.9, diagonal populations corrupted,
-benchmarks/tpu_r03/boost_n256_div6_rescale_x2.json): a fresh Metropolis sample
+the booster divergence trigger (purity 5.9, diagonal populations
+corrupted): a fresh Metropolis sample
 does not reproduce the trajectory-ensemble normalization of the point-sum
 estimators.  The reference survives the same event because its post-seeding
 reoptimization pins population/purity as equality constraints
@@ -154,7 +154,7 @@ def test_nascent_element_relabel_bypasses_the_band():
     must ACCEPT the predictor's fresh labels unscaled instead of rejecting:
     the conservation ratio is noise over noise and its field is growing
     (measured starvation: four straight (1, 1) rejections through the SAC
-    transfer onset, benchmarks/r04/boost_n256_div6_freeze_tpu.json)."""
+    transfer onset)."""
     cfg = GPLEConfig(model="SAC", num_points=8)
     drv = GPLEDriver(cfg)
     old_d = np.zeros((4, 2))
@@ -180,7 +180,7 @@ def test_nascent_bypass_sanity_bounds():
     """The bypass trusts the predictor only within nascent SCALE: a relabel
     claiming a net-negative diagonal or a many-times-threshold integral is a
     corrupt query, not growth (the div-6 coh-cutoff probe's one-tick -2.8
-    population jump, benchmarks/r05/boost_probe_cohcut.jsonl tick 140)."""
+    population jump)."""
     cfg = GPLEConfig(model="SAC", num_points=8, relabel_conserve=True)
     drv = GPLEDriver(cfg)
     old_d = np.zeros((4, 2))
@@ -202,7 +202,7 @@ def test_nascent_bypass_sanity_bounds():
 
 
 def test_resolved_coherence_is_not_nascent_at_production_n():
-    """ADVICE r4: at production cloud sizes (N = 256) a RESOLVED coherence --
+    """At production cloud sizes (N = 256) a RESOLVED coherence --
     per-point |rho| comparable to the diagonal mean -- must NOT classify as
     nascent.  The pre-fix rule compared an L2 norm (scales sqrt(N) * rms)
     against 5% of a linear point-sum (scales N * mean), so the threshold was

@@ -20,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_isolated(code: str, timeout: int = 900):
-    env = {**os.environ}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     flags = env.get("XLA_FLAGS", "")
     if "host_platform_device_count" not in flags:
         env["XLA_FLAGS"] = (

@@ -9,8 +9,8 @@ here so they cannot silently return:
    kernels: the old Schur-block chain cancelled to rounding noise; the real
    SPD embedding must stay finite and accurate there.
 3. Ill-conditioned grams near the kappa ~ 1e7 corner of the optimizer's
-   bound box: the Newton-Schulz production inverse must either converge or
-   degrade to a contracting (never divergent) preconditioner.
+   bound box: the production inverse must stay finite and give a refined
+   solve that contracts, never diverges.
 """
 
 import jax
@@ -20,7 +20,7 @@ import pytest
 
 from gple_tpu.ops import complex_kernels as CK
 from gple_tpu.ops import kernels as K
-from gple_tpu.ops.linalg import _newton_schulz_inverse, refine_solve
+from gple_tpu.ops.linalg import psd_inverse, refine_solve
 from gple_tpu.utils import ri
 
 
@@ -72,8 +72,7 @@ def test_fit_complex_zero_labels_finite():
 
 def test_cutoff_factor_zero_mean_zero_variance():
     """The exact corner that NaN'd on hardware: mean = 0 with var = 0 must
-    give cutoff 0, not 0/0 (the var floor has to sit inside f32 exponent
-    range because the TPU backend emulates f64 with f32-range exponents)."""
+    give cutoff 0, not 0/0."""
     out = np.asarray(K.cutoff_factor(jnp.asarray([0.0, 1e-20]), jnp.asarray([0.0, 0.0])))
     assert np.all(np.isfinite(out))
     assert out[0] == 0.0
@@ -118,10 +117,9 @@ def test_complex_fit_at_full_correlation(corr):
 # 3. conditioning guard
 
 
-def test_newton_schulz_high_condition_contracts():
-    """At kappa ~ 1e7 (tight lengths, tiny noise) the NS inverse must yield a
-    preconditioner under which refine_solve still contracts to the true
-    solution -- never a divergent inverse."""
+def test_psd_inverse_high_condition_accurate():
+    """At kappa ~ 1e7 (tight lengths, tiny noise) the inverse is finite and
+    refine_solve reaches the true solution."""
     rng = np.random.default_rng(5)
     n = 96
     x = rng.normal(size=(n, 2)) * 0.15          # tightly clustered points
@@ -129,30 +127,27 @@ def test_newton_schulz_high_condition_contracts():
     k = jnp.asarray(np.exp(-0.5 * d2 / 0.5**2) + 3.2e-3**2 * np.eye(n))
     cond = float(np.linalg.cond(np.asarray(k)))
     assert 2e6 < cond < 3e7, cond
-    xinv = _newton_schulz_inverse(k)
+    xinv = psd_inverse(k)
     assert np.all(np.isfinite(np.asarray(xinv)))
     y = jnp.asarray(rng.normal(size=n))
     a = np.asarray(refine_solve(xinv, k, y, iters=8))
     a_true = np.linalg.solve(np.asarray(k), np.asarray(y))
     err = np.abs(a - a_true).max() / np.abs(a_true).max()
-    assert err < 1e-5, (cond, err)
+    assert err < 1e-8, (cond, err)
 
 
-def test_newton_schulz_guard_restarts_on_divergence():
-    """Force the f32 stage to fail (pathological conditioning) and check the
-    output is still finite and contracting under refinement."""
+def test_psd_inverse_pathological_spectrum_contracts():
+    """A spectrum spanning 1e9 (beyond any production gram): the inverse
+    stays finite and refinement does not diverge."""
     n = 64
     rng = np.random.default_rng(6)
     q, _ = np.linalg.qr(rng.normal(size=(n, n)))
-    # spectrum spanning 1e9: far beyond the f32 stage's convergence range
     ev = np.logspace(-9, 0, n)
     k = jnp.asarray((q * ev) @ q.T)
     k = 0.5 * (k + k.T)
-    xinv = np.asarray(_newton_schulz_inverse(k))
+    xinv = np.asarray(psd_inverse(k))
     assert np.all(np.isfinite(xinv))
-    # the guard guarantees a contraction, not an accurate inverse: check that
-    # the refined residual decreases monotonically over blocks of iterations
     y = jnp.asarray(rng.normal(size=n))
     r0 = np.linalg.norm(np.asarray(k) @ np.asarray(refine_solve(jnp.asarray(xinv), k, y, iters=2)) - np.asarray(y))
     r1 = np.linalg.norm(np.asarray(k) @ np.asarray(refine_solve(jnp.asarray(xinv), k, y, iters=8)) - np.asarray(y))
-    assert r1 <= r0 * (1 + 1e-9)
+    assert r1 <= r0 * (1 + 1e-6) + 1e-12
